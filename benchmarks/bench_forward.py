@@ -1,4 +1,4 @@
-"""TPU forward/backward throughput of the production renderer vs reference."""
+"""Forward/backward throughput of the exact gather marcher vs the reference."""
 
 import argparse
 import time
@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from libre_tpu.core.frustum import look_at, perspective
-from libre_tpu.ops import raycast, transfer_function as tf_ops
-from libre_tpu.ops.reference import (
+from libre.core.frustum import look_at, perspective
+from libre.ops import raycast, transfer_function as tf_ops
+from libre.ops.reference import (
     Camera,
     RenderParams,
     render_reference,
@@ -64,9 +64,6 @@ def bench(n_vox, img, spr, filter_mode, chunk, mode, which):
     if mode == "fwd":
         f = jax.jit(lambda b, t: render_fn(b, t))
         dt, out = timed(f, bricks, tf)
-        if which == "fast" and img <= 256:
-            ref = render_reference(b=bricks, tf=tf, camera=cam, params=params,
-                                   global_min=gmin, global_max=gmax) if False else None
     else:
         def loss(data, t):
             b = bricks._replace(data=data)

@@ -8,12 +8,11 @@ and parallel efficiency vs the 1-device run:
     python benchmarks/bench_scaling.py [--devices N] [--brick 2] \
         [--img 256] [--planes 512] [--vox 64] [--cpu-mesh]
 
-On a multi-chip TPU slice this measures real ICI scaling (the
-BASELINE.json north star asks ≥80% at 1→N hosts).  With --cpu-mesh it
-runs on a virtual CPU mesh (xla_force_host_platform_device_count) —
-useful to validate the sharding compiles and the decomposition is
-load-balanced, but CPU timings are NOT hardware efficiency numbers and
-are flagged as such.
+On a multi-GPU host this measures real scaling.  With --cpu-mesh it runs
+on a virtual CPU mesh (xla_force_host_platform_device_count) — useful to
+validate the sharding compiles and the decomposition is load-balanced,
+but CPU timings are NOT hardware efficiency numbers and are flagged as
+such.
 
 Prints one JSON line per device count:
   {"devices": n, "mrays_per_s": x, "efficiency": e, "backend": "..."}
@@ -32,74 +31,6 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def comm_model(
-    *,
-    img: int,
-    planes: int,
-    na: int,
-    nc_pad: int,
-    nb_pad: int,
-    t_kernel_ms: float,
-    device_counts,
-    ici_gbps: float = 90.0,
-    views_per_step: int = 1,
-):
-    """Analytic per-axis communication budget vs ICI bandwidth.
-
-    The CPU-mesh timings below validate sharding, not hardware; THIS
-    table is the hardware prediction (r3 weak 6): bytes moved per
-    frame/step per device for each mesh axis, and the resulting
-    predicted parallel efficiency  eff = t_comp / (t_comp + t_comm)
-    with t_comp = single-chip kernel time / D.  ``ici_gbps`` is the
-    per-chip aggregate ICI bandwidth (v5e 1D ring ≈ 2 × 45 GB/s).
-
-    Per-axis costs (R = img² rays, f32):
-      * ray axis (sort-first rows): ZERO steady-state bytes — each
-        device owns its rows end-to-end (Channel.cpp 2D viewport split);
-      * brick axis (sort-last plane slabs), inference fold: the
-        DIRECT-SEND tile-owned composite
-        (parallel/compositing.composite_direct_send, the production
-        path in render_store_grid_sharded): ONE all_to_all of the rgba
-        segment — 4 maps · (D−1)/D ≈ 4·R·4 B on the wire per device,
-        with the fold itself local to each tile owner.  (The replicated
-        psum form, composite_along_axis, costs log2(D)·R + 16·R B and
-        is kept for callers that need the result replicated.);
-      * brick axis, slab-TRAINING step: + 2 halo slices
-        (2·Ncp·Nbp·4 B ppermute) + the TF cotangent psum (256·4·4 B ≈
-        4 KB, negligible) per view; store gradients never move.
-    """
-    r_bytes = img * img * 4
-    rows = []
-    for d in device_counts:
-        if d == 1:
-            rows.append(dict(devices=1, frame_bytes_per_dev=0,
-                             step_bytes_per_dev=0,
-                             predicted_frame_eff=1.0,
-                             predicted_step_eff=1.0))
-            continue
-        fold = 4 * (d - 1) / d * r_bytes
-        halos = 2 * nc_pad * nb_pad * 4
-        tfpsum = 2 * (d - 1) / d * 256 * 4 * 4
-        step = (fold + halos + tfpsum) * views_per_step
-        t_comp = t_kernel_ms / d
-        t_fold = fold / (ici_gbps * 1e6)  # ms
-        t_step = step / (ici_gbps * 1e6)
-        rows.append(dict(
-            devices=d,
-            frame_bytes_per_dev=int(fold),
-            step_bytes_per_dev=int(step),
-            predicted_frame_eff=round(t_comp / (t_comp + t_fold), 3),
-            predicted_step_eff=round(t_comp / (t_comp + t_step), 3),
-        ))
-    return dict(
-        model="bytes per device per frame/step on the brick (sort-last) "
-              "axis; ray axis moves zero bytes",
-        ici_gbps=ici_gbps,
-        t_kernel_1dev_ms=t_kernel_ms,
-        rows=rows,
-    )
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, default=0, help="max devices (0 = all)")
@@ -109,9 +40,10 @@ def main():
     ap.add_argument("--vox", type=int, default=64)
     ap.add_argument("--cpu-mesh", action="store_true",
                     help="force a virtual CPU mesh (validation, not perf)")
-    ap.add_argument("--path", default="dense", choices=["dense", "bricked"],
-                    help="dense = pre-classified fused kernel; bricked = "
-                    "the post-classification store sweep "
+    ap.add_argument("--path", default="bricked", choices=["dense", "bricked"],
+                    help="dense = pre-classified shear-warp "
+                    "(parallel/shearwarp_sharded.py); bricked = the "
+                    "post-classification store march "
                     "(parallel/bricked_sharded.py)")
     args = ap.parse_args()
 
@@ -130,15 +62,16 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from libre_tpu.core.frustum import look_at, perspective
-    from libre_tpu.ops import shearwarp as sw
-    from libre_tpu.ops import shearwarp_pallas as swp_mod
-    from libre_tpu.ops import transfer_function as tf_ops
-    from libre_tpu.ops.reference import Camera, RenderParams
-    from libre_tpu.parallel import make_mesh
+    from libre import backend as be
+    from libre.core.frustum import look_at, perspective
+    from libre.ops import shearwarp as sw
+    from libre.ops import transfer_function as tf_ops
+    from libre.ops.reference import Camera, RenderParams
+    from libre.parallel import make_mesh
 
+    be.setup_compile_cache()
     n_avail = len(jax.devices())
-    backend = jax.devices()[0].platform
+    backend = be.platform()
     n_max = min(args.devices or n_avail, n_avail)
     log(f"{n_avail} {backend} devices available, scaling to {n_max}")
 
@@ -160,30 +93,18 @@ def main():
         n_samples_per_ray=spr, data_source_range=(0.0, 1.0),
         filter_mode="trilinear",
     )
-    use_pallas = backend == "tpu"
-    chans = swp_mod.classify_planes(vol, tf, plan.axis, params.data_source_range)
-    perm = sw._PERM[plan.axis]
-    nc_real, nb_real = vol.shape[perm[1]], vol.shape[perm[2]]
-
     if args.path == "bricked":
         # The post-classification store sweep sharded sort-first rows ×
         # sort-last plane slabs (the round-2+ fast path).
-        from libre_tpu.ops import shearwarp_bricked as swb
-        from libre_tpu.ops import shearwarp_grad as swg
-        from libre_tpu.ops.shearwarp_pallas import _round_up
-        from libre_tpu.parallel.bricked_sharded import (
+        from libre.ops import shearwarp_grad as swg
+        from libre.parallel.bricked_sharded import (
             render_store_grid_sharded,
         )
 
         axis = plan.axis
         real = np.transpose(np.asarray(vol), sw._PERM[axis])
         na, nc_r, nb_r = real.shape
-        store_np = np.full(
-            (na, _round_up(nc_r, 128), _round_up(nb_r, 128)),
-            swb.SENTINEL, np.float32,
-        )
-        store_np[:, :nc_r, :nb_r] = real
-        store = jnp.asarray(store_np)
+        store = jnp.asarray(real)
         b_axis, c_axis = sw._BC_AXES[axis]
         fv_j = jnp.asarray(swg.view_vector(
             world_min=gmin, world_max=gmax, axis=axis, eye=plan.eye,
@@ -216,7 +137,6 @@ def main():
         mesh = make_mesh(n_brick=n_brick, n_ray=n_ray,
                          devices=jax.devices()[:n])
         swp = sw.ShearWarpParams(n_planes=spr, inter_size=(img, img))
-        pa = swp_mod.slope_grid_plan_args(plan, gmin, gmax, params, swp)
 
         if args.path == "bricked":
             render_one = lambda st, mesh=mesh: render_store_grid_sharded(
@@ -225,28 +145,20 @@ def main():
                 k_planes=spr, inter_size=(img, img),
                 wb0=float(gmin[b_axis]), wb1=float(gmax[b_axis]),
                 wc0=float(gmin[c_axis]), wc1=float(gmax[c_axis]),
-                early_exit=0.999, interpret=not use_pallas,
-            )
-        elif n == 1 and use_pallas:
-            render_one = lambda c: swp_mod.render_classified_slope_grid(
-                c, nc_real, nb_real, pa
-            )
-        elif use_pallas:
-            render_one = lambda c, mesh=mesh: swp_mod.render_slope_grid_sharded(
-                mesh, c, nc_real, nb_real, pa
+                early_exit=0.999,
             )
         else:
-            from libre_tpu.parallel.shearwarp_sharded import (
+            from libre.parallel.shearwarp_sharded import (
                 render_slope_grid_sharded,
             )
 
-            render_one = lambda c, mesh=mesh: render_slope_grid_sharded(
-                mesh, vol + c[0, 0, 0] * 0, tf, plan.eye, plan.axis,
+            render_one = lambda v, mesh=mesh: render_slope_grid_sharded(
+                mesh, v, tf, plan.eye, plan.axis,
                 plan.sign, plan.bounds, gmin, gmax, params, swp,
             )
 
         dt = timed_marginal(
-            render_one, store if args.path == "bricked" else chans
+            render_one, store if args.path == "bricked" else vol
         )
         mrays = img * img / dt / 1e6
         if base is None:
@@ -254,8 +166,7 @@ def main():
         eff = mrays / (base * n)
         # On the virtual CPU mesh the ratio checks shard SHAPES, not
         # hardware scaling — name it so it cannot be quoted as
-        # efficiency (VERDICT r4 weak 8); the analytic comm_model below
-        # is the hardware prediction.
+        # efficiency.
         eff_key = (
             "cpu_virtual_scaling_shape_check" if args.cpu_mesh
             else "efficiency"
@@ -267,15 +178,6 @@ def main():
             "backend": backend + ("/virtual" if args.cpu_mesh else ""),
         }), flush=True)
         n *= 2
-
-    # Analytic ICI prediction (the ≥80% BASELINE target is otherwise
-    # untestable on a 1-chip bench host).
-    nc_pad = -(-nv // 128) * 128
-    model = comm_model(
-        img=img, planes=spr, na=nv, nc_pad=nc_pad, nb_pad=nc_pad,
-        t_kernel_ms=3.3, device_counts=[1, 2, 4, 8, 16, 64, 256],
-    )
-    print(json.dumps({"comm_model": model}), flush=True)
 
     if args.cpu_mesh:
         log("NOTE: virtual CPU mesh — numbers validate sharding, not hardware")

@@ -1,33 +1,34 @@
 """Inverse-rendering demo on real hardware (BASELINE config 5).
 
 Recovers a density store from multi-view target images through the
-fused Pallas forward + fused Pallas backward
+plane-march forward + batched recompute backward
 (ops/shearwarp_grad.render_store_grid_diff) with the flagship trainer
 (train/store_trainer.py):
 
     python benchmarks/demo_inverse_render.py [--vox 64] [--img 64] \
         [--planes 96] [--steps 50] [--views 4]
 
-Measured on one v5e (defaults): image loss 0.194 -> 0.0008 in 50 steps,
-7.3 s wall including compile (~146 ms/step with host dispatch).  Runs
-on CPU too (interpret-mode Pallas; use tiny sizes).
+Runs on the CPU too (use tiny sizes).
 """
 
 import argparse
+import os
 import sys
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
-from libre_tpu.ops import shearwarp as sw
-from libre_tpu.ops import shearwarp_grad as swg
-from libre_tpu.ops import transfer_function as tf_ops
-from libre_tpu.ops.shearwarp_bricked import SENTINEL
-from libre_tpu.ops.shearwarp_pallas import _round_up
-from libre_tpu.train import store_trainer as st
+from libre import backend
+from libre.ops import shearwarp as sw
+from libre.ops import shearwarp_grad as swg
+from libre.ops import transfer_function as tf_ops
+from libre.ops.shearwarp_bricked import SENTINEL
+from libre.train import store_trainer as st
 
 GMIN, GMAX = np.float32([-0.5] * 3), np.float32([0.5] * 3)
 AXIS, SIGN = 2, -1.0
@@ -54,75 +55,6 @@ def smooth_volume(n, seed=7):
     return np.clip(vol / vol.max(), 0.0, 1.0)
 
 
-def main_exact(args, interpret):
-    """Inverse rendering with REFERENCE-EXACT perspective sampling:
-    multi-view targets rendered and differentiated through
-    render_exact_diff (r5; this used to require the 0.009 Mrays/s XLA
-    gather marcher)."""
-    import math
-
-    from libre_tpu.core.frustum import look_at, perspective
-    from libre_tpu.ops import exact_pallas as ep
-    from libre_tpu.ops.reference import Camera, RenderParams
-    from libre_tpu.train.trainer import (
-        init_exact_state,
-        make_exact_train_step,
-    )
-
-    n, img, spr = args.vox, args.img, args.planes
-    params = RenderParams(
-        n_samples_per_ray=spr, data_source_range=(0.0, 1.0),
-        filter_mode="trilinear", early_exit=1.1,
-        max_steps_per_brick=int(math.ceil(math.sqrt(3.0) * spr)) + 4,
-    )
-    proj = perspective(50.0, 1.0, 0.1, 15.0)
-    plans = []
-    for e in EYES[: args.views]:
-        mv = look_at(e, [0, 0, 0], [0, 1, 0])
-        cam = Camera(
-            inv_proj=np.linalg.inv(proj.astype(np.float64)).astype(
-                np.float32
-            ),
-            inv_mv=np.linalg.inv(mv.astype(np.float64)).astype(
-                np.float32
-            ),
-            viewport=(0, 0, img, img),
-            near=0.1,
-        )
-        plans.append(ep.plan_exact(cam, params, GMIN, GMAX, (n, n, n)))
-    vol_gt = jnp.asarray(smooth_volume(n))
-    tf = jnp.asarray(np.asarray(tf_ops.default_color_map(256)))
-    targets = [
-        ep.render_exact_rays(vol_gt, tf, p, interpret=interpret)
-        for p in plans
-    ]
-    optimizer = optax.adam(args.lr)
-    state = init_exact_state(
-        jnp.full((n, n, n), 0.5, jnp.float32), tf, optimizer
-    )
-    steps = [
-        make_exact_train_step(p, optimizer, interpret=interpret)
-        for p in plans
-    ]
-    t0 = time.perf_counter()
-    first = None
-    for s in range(args.steps):
-        state, loss = steps[s % len(plans)](state, targets[s % len(plans)])
-        if first is None:
-            first = float(loss)
-    dt = time.perf_counter() - t0
-    err = float(
-        jnp.abs(state.params["density"] - vol_gt).mean()
-    )
-    print(
-        f"exact inverse render: view loss {first:.5f} -> "
-        f"{float(loss):.6f}, mean |density err| {err:.4f}, "
-        f"{args.steps} steps in {dt:.1f}s "
-        f"({dt / args.steps * 1e3:.0f} ms/step incl compile+host)"
-    )
-    return
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--vox", type=int, default=64)
@@ -131,19 +63,10 @@ def main():
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--views", type=int, default=4)
     ap.add_argument("--lr", type=float, default=5e-2)
-    ap.add_argument("--exact", action="store_true",
-                    help="optimize through the EXACT perspective "
-                    "marcher (ops/exact_pallas.render_exact_diff: "
-                    "fused recompute backward at kernel speed) instead "
-                    "of the shear-warp store path")
     args = ap.parse_args()
 
-    interpret = jax.devices()[0].platform != "tpu"
-    print("devices:", jax.devices(), "interpret:", interpret,
-          file=sys.stderr)
-
-    if args.exact:
-        return main_exact(args, interpret)
+    backend.setup_compile_cache()
+    print("devices:", jax.devices(), file=sys.stderr)
     V = U = args.img
     views = np.stack([
         swg.view_vector(
@@ -156,17 +79,13 @@ def main():
     vol = smooth_volume(args.vox)
     real = np.transpose(vol, sw._PERM[AXIS])
     na, nc, nb = real.shape
-    store_gt = np.full(
-        (na, _round_up(nc, 128), _round_up(nb, 128)), SENTINEL, np.float32
-    )
-    store_gt[:, :nc, :nb] = real
-    store_gt = jnp.asarray(store_gt)
+    store_gt = jnp.asarray(real)
     tf = jnp.asarray(np.asarray(tf_ops.default_color_map(256)))
     problem = st.StoreProblem(
         views=views, na_store=na, na_real=na, nc_real=nc, nb_real=nb,
         k_planes=args.planes, inter_size=(V, U),
         world_min=GMIN, world_max=GMAX, axis=AXIS,
-        diff_tf=True, kc=32, interpret=interpret,
+        diff_tf=True, kc=32,
     )
     targets = st.render_views(problem, store_gt, tf)
     covered = np.asarray(store_gt) > -0.5

@@ -1,11 +1,11 @@
-"""Config 5 at pod scale: slab-sharded (model-parallel) store training.
+"""Config 5 across cards: slab-sharded (model-parallel) store training.
 
-Prints (a) the per-device HBM budget table for replicated vs
-slab-sharded training — the replicated flagship trainer stops at ~512³
-because store + Adam moments replicate (~12 GB at 1024³ f32); the slab
-trainer scales them 1/D — and (b) a FUNCTIONAL run of the slab trainer
-on the mesh available to this process (8-device virtual CPU mesh under
-XLA_FLAGS=--xla_force_host_platform_device_count=8, or a real slice),
+Prints (a) the per-device memory table for replicated vs slab-sharded
+training — the store and its Adam moments replicate in the replicated
+trainer (~12 GB at 1024³ f32), the slab trainer divides them by D — and
+(b) a FUNCTIONAL run of the slab trainer on the mesh available to this
+process (8-device virtual CPU mesh under
+XLA_FLAGS=--xla_force_host_platform_device_count=8, or real cards),
 verifying the loss decreases with the store sharded P(brick).
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -22,21 +22,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
-def memory_table(d_values=(1, 4, 8, 16, 64)):
-    """Per-device training HBM (GB) for an Na³ f32 store + Adam moments
-    (3× store) + one halo slice pair; ray-axis terms omitted (small)."""
+def memory_table(d_values=(1, 4, 8, 16, 64), device_gb=80.0):
+    """Per-device training memory (GB) for an Na³ f32 store + Adam
+    moments (3× store) + one halo slice pair; ray-axis terms omitted
+    (small).  ``device_gb``: the card's memory (an H100 has 80 GB)."""
     rows = []
     for na in (256, 512, 1024, 2048):
-        nc_pad = -(-na // 128) * 128
-        store_gb = na * nc_pad * nc_pad * 4 / 2**30
+        store_gb = na ** 3 * 4 / 2**30
         for d in d_values:
-            per_dev = store_gb * 3 / d + 2 * nc_pad * nc_pad * 4 / 2**30
+            per_dev = store_gb * 3 / d + 2 * na * na * 4 / 2**30
             rows.append(
                 {
                     "na": na,
                     "devices": d,
                     "store_plus_adam_gb_per_dev": round(per_dev, 3),
-                    "fits_16gb_hbm": bool(per_dev < 14.0),
+                    "fits_device": bool(per_dev < device_gb),
                 }
             )
     return rows
@@ -52,6 +52,9 @@ def main():
 
     import jax
 
+    from libre import backend
+
+    backend.setup_compile_cache()
     if jax.device_count() < 8:
         print(json.dumps({"functional": "skipped (need 8 devices)"}))
         return
@@ -59,13 +62,11 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from libre_tpu.ops import shearwarp as sw
-    from libre_tpu.ops import shearwarp_grad as swg
-    from libre_tpu.ops import transfer_function as tf_ops
-    from libre_tpu.ops.shearwarp_bricked import SENTINEL
-    from libre_tpu.ops.shearwarp_pallas import _round_up
-    from libre_tpu.parallel.mesh import make_mesh
-    from libre_tpu.train import store_trainer as st
+    from libre.ops import shearwarp as sw
+    from libre.ops import shearwarp_grad as swg
+    from libre.ops import transfer_function as tf_ops
+    from libre.parallel.mesh import make_mesh
+    from libre.train import store_trainer as st
 
     axis, sign = 2, -1.0
     n = args.vox
@@ -74,10 +75,7 @@ def main():
     vol = rng.random((n, n, n)).astype(np.float32)
     real = np.transpose(vol, sw._PERM[axis])
     na, nc, nb = real.shape
-    store = np.full(
-        (na, _round_up(nc, 128), _round_up(nb, 128)), SENTINEL, np.float32
-    )
-    store[:, :nc, :nb] = real
+    store = np.ascontiguousarray(real, np.float32)
     store = jnp.asarray(store)
     tf = jnp.asarray(np.asarray(tf_ops.default_color_map(256)))
     bounds = (-0.45, 0.45, -0.4, 0.4)
@@ -95,12 +93,11 @@ def main():
             )
         ]
     )
-    interpret = jax.devices()[0].platform != "tpu"
     problem = st.StoreProblem(
         views=views, na_store=na, na_real=na, nc_real=nc, nb_real=nb,
         k_planes=k_planes, inter_size=(v_size, u_size),
         world_min=gmin, world_max=gmax, axis=axis,
-        diff_tf=False, kc=16, interpret=interpret,
+        diff_tf=False, kc=16,
     )
     mesh = make_mesh(n_brick=4, n_ray=2)
     d_k = mesh.shape["brick"]

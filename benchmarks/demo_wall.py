@@ -34,10 +34,10 @@ def main():
 
     import jax
 
-    from libre_tpu.core.frustum import Frustum, look_at, perspective
-    from libre_tpu.data.datasource import DataSource, load_plugins
-    from libre_tpu.ops.reference import Camera
-    from libre_tpu.render.engine import RenderEngine
+    from libre.core.frustum import Frustum, look_at, perspective
+    from libre.data.datasource import DataSource, load_plugins
+    from libre.ops.reference import Camera
+    from libre.render.engine import RenderEngine
 
     load_plugins()
     eng = RenderEngine(

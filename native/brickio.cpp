@@ -1,10 +1,10 @@
 // Native brick IO: batched mmap read + zlib inflate on a thread pool.
 //
-// TPU-native equivalent of the reference's per-brick UVF fetch path
+// The equivalent of the reference's per-brick UVF fetch path
 // (datasources/uvf/UVFDataSource.cpp:249-301: TOC lookup -> mmap read ->
 // zlib decompress) combined with the 4-thread upload executor sharding of
 // GLRenderUploadFilter.cpp:79-107 — the host half of the out-of-core
-// paging pipeline, feeding the HBM atlas.
+// paging pipeline, feeding the device atlas.
 //
 // Build: make -C native   (g++ -O2 -fPIC -shared, links zlib/pthread)
 

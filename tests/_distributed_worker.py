@@ -28,7 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import multihost_utils  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
-from libre_tpu.parallel.distributed import (  # noqa: E402
+from libre.parallel.distributed import (  # noqa: E402
     broadcast_frame_state,
     initialize,
     is_controller,
@@ -61,11 +61,11 @@ def main():
     sync_global_devices("framedata")
 
     # --- sharded render + gradient across the process boundary -------
-    from libre_tpu.ops import shearwarp as sw
-    from libre_tpu.ops import transfer_function as tf_ops
-    from libre_tpu.ops.reference import RenderParams
-    from libre_tpu.parallel.mesh import make_mesh
-    from libre_tpu.parallel.shearwarp_sharded import (
+    from libre.ops import shearwarp as sw
+    from libre.ops import transfer_function as tf_ops
+    from libre.ops.reference import RenderParams
+    from libre.parallel.mesh import make_mesh
+    from libre.parallel.shearwarp_sharded import (
         render_slope_grid_sharded,
     )
 
@@ -124,22 +124,17 @@ def main():
     # (r3 weak 5: the dense test proves the bootstrap, not the
     # centerpiece.)  Sharded bricked render + a slab-sharded store
     # trainer step, both equal to the local single-device results.
-    from libre_tpu.ops import shearwarp_grad as swg
-    from libre_tpu.ops.shearwarp_bricked import SENTINEL
-    from libre_tpu.ops.shearwarp_pallas import _round_up
-    from libre_tpu.parallel.bricked_sharded import (
+    from libre.ops import shearwarp_grad as swg
+    from libre.parallel.bricked_sharded import (
         render_store_grid_sharded,
     )
-    from libre_tpu.train import store_trainer as st
+    from libre.train import store_trainer as st
 
     axis, sign = 2, -1.0
     k_planes, v_size, u_size = 16, 8, 8
     real = np.transpose(np.asarray(vol), sw._PERM[axis])
     na, nc, nb = real.shape
-    store_np = np.full(
-        (na, _round_up(nc, 128), _round_up(nb, 128)), SENTINEL, np.float32
-    )
-    store_np[:, :nc, :nb] = real
+    store_np = np.ascontiguousarray(real, np.float32)
     fv = swg.view_vector(
         world_min=gmin, world_max=gmax, axis=axis, eye=eye, sign=sign,
         slope_bounds=bounds, inter_size=(v_size, u_size),
@@ -157,7 +152,7 @@ def main():
         na_store=na, na_real=na, nc_real=nc, nb_real=nb,
         k_planes=k_planes, v_size=v_size, u_size=u_size,
         world_min=gmin, world_max=gmax, axis=axis,
-        early_exit=1.1, kc=8, interpret=True,
+        early_exit=1.1, kc=8,
     )
     ref_img = swg.render_store_grid_diff(
         jnp.asarray(store_np), tf_local, jnp.asarray(fv), static
@@ -170,7 +165,7 @@ def main():
             inter_size=(v_size, u_size),
             wb0=float(gmin[b_axis]), wb1=float(gmax[b_axis]),
             wc0=float(gmin[c_axis]), wc1=float(gmax[c_axis]),
-            early_exit=1.1, interpret=True,
+            early_exit=1.1,
         )
         return jnp.max(jnp.abs(img - ref))
 
@@ -187,7 +182,7 @@ def main():
         na_store=na, na_real=na, nc_real=nc, nb_real=nb,
         k_planes=k_planes, inter_size=(v_size, u_size),
         world_min=gmin, world_max=gmax, axis=axis,
-        diff_tf=True, kc=8, interpret=True,
+        diff_tf=True, kc=8,
     )
     targets_np = np.asarray(
         st.render_views(problem, jnp.asarray(store_np), tf_local)

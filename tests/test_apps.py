@@ -8,17 +8,17 @@ import urllib.request
 import numpy as np
 import pytest
 
-from libre_tpu.apps.batch import missing_frame_ranges, split_range
-from libre_tpu.apps.steering import SteeringServer
-from libre_tpu.core.events import (
+from libre.apps.batch import missing_frame_ranges, split_range
+from libre.apps.steering import SteeringServer
+from libre.core.events import (
     BUTTON_DOLLY,
     BUTTON_ORBIT,
     EventMapper,
     KeyboardHandler,
     PointerHandler,
 )
-from libre_tpu.core.settings import FrameData
-from libre_tpu.utils.image import encode_jpeg, encode_png, write_image
+from libre.core.settings import FrameData
+from libre.utils.image import encode_jpeg, encode_png, write_image
 
 
 def _req(url, method="GET", body=None):
@@ -75,7 +75,7 @@ def test_steering_web_ui_served():
     base = f"http://{host}:{port}"
     try:
         page = _req(f"{base}/")
-        assert b"libre_tpu" in page and b"tfcanvas" in page
+        assert b"libre" in page and b"tfcanvas" in page
         cm = _req(f"{base}/colormap")
         arr = np.asarray(cm["rgba"], np.float32)
         assert arr.shape == (256, 4)
@@ -154,7 +154,7 @@ def test_batch_watchdog_kills_idle_job(tmp_path):
     import subprocess
     import pytest
 
-    from libre_tpu.apps.batch import _run_with_watchdog
+    from libre.apps.batch import _run_with_watchdog
 
     with pytest.raises(subprocess.CalledProcessError):
         _run_with_watchdog(["sleep", "30"], str(tmp_path), idle_timeout_s=1.0)
@@ -165,7 +165,7 @@ def test_render_service_bricked_default():
     default (VERDICT r1: serve.py was the one surface still on the
     exact marcher), reuses the assembled-store cache across frames, and
     re-renders on a colormap edit without reassembly."""
-    from libre_tpu.apps.serve import RenderService
+    from libre.apps.serve import RenderService
 
     svc = RenderService(
         "mem://#16,16,16,8?pattern=gradient&datatype=uint8",
@@ -197,7 +197,7 @@ def test_render_service_async_converges_to_sync():
     """The async steering default (synchronousMode=false,
     rendererParameters.fbs:6) converges to the synchronous image via the
     redraw loop instead of staying black (VERDICT r2 weak item 1)."""
-    from libre_tpu.apps.serve import RenderService
+    from libre.apps.serve import RenderService
 
     uri = "mem://#16,16,16,8?pattern=gradient&datatype=uint8"
     sync_svc = RenderService(uri, width=24, height=24, port=0)
@@ -215,7 +215,7 @@ def test_render_service_progressive_redraw():
     """progressive=True renders what's resident and re-arms _dirty when
     the kicked uploads land — the RedrawFilter → REDRAW loop
     (GLRaycastPipeline.cpp:241-308, Channel.cpp:64-90)."""
-    from libre_tpu.apps.serve import RenderService
+    from libre.apps.serve import RenderService
 
     svc = RenderService(
         "mem://#16,16,16,8?pattern=gradient&datatype=uint8",
@@ -230,6 +230,31 @@ def test_render_service_progressive_redraw():
     assert img[..., 3].max() > 0.01
 
 
+def test_wall_failure_is_logged_and_views_render_one_by_one(
+    monkeypatch, caplog
+):
+    """A wall the one-dispatch path cannot take is not hidden: serve logs
+    the ValueError and renders the views through the sequential loop."""
+    from libre.apps.serve import RenderService
+
+    svc = RenderService(
+        "mem://#16,16,16,8?pattern=gradient&datatype=uint8",
+        width=32, height=24, port=0,
+    )
+    svc.layout = "1x2"
+    svc.server.params["synchronous"] = True  # the wall's mode
+
+    def refuse(*args, **kwargs):
+        raise ValueError("views cannot share one dispatch")
+
+    monkeypatch.setattr(svc.engine, "render_wall", refuse)
+    with caplog.at_level("WARNING", logger="libre.apps.serve"):
+        canvas = svc.render_frame()
+    assert "views cannot share one dispatch" in caplog.text
+    assert canvas.shape == (24, 32, 4)
+    assert canvas[:, :16, 3].max() > 0.01 and canvas[:, 16:, 3].max() > 0.01
+
+
 def test_multi_view_layouts():
     """The service renders a 2x2 wall of simultaneous orbit views from
     one volume and switches layouts over HTTP ('l' semantics,
@@ -237,7 +262,7 @@ def test_multi_view_layouts():
     import json
     import urllib.request
 
-    from libre_tpu.apps.serve import RenderService
+    from libre.apps.serve import RenderService
 
     svc = RenderService(
         "mem://#16,16,16,8?pattern=gradient&datatype=uint8",
@@ -290,8 +315,8 @@ def test_render_cli_mesh_matches_single_device(tmp_path):
     virtual 8-device mesh and the frame equals the single-device one."""
     import numpy as np
 
-    from libre_tpu.apps import render_cli
-    from libre_tpu.utils.image import read_image
+    from libre.apps import render_cli
+    from libre.utils.image import read_image
 
     single = tmp_path / "single"
     meshed = tmp_path / "meshed"

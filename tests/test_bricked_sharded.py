@@ -23,18 +23,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from libre_tpu.ops import shearwarp as sw
-from libre_tpu.ops import shearwarp_bricked as swb
-from libre_tpu.ops import shearwarp_grad as swg
-from libre_tpu.ops import transfer_function as tf_ops
-from libre_tpu.ops.reference import RenderParams
-from libre_tpu.ops.shearwarp_pallas import _round_up
-from libre_tpu.parallel.bricked_sharded import (
+from libre.ops import shearwarp as sw
+from libre.ops import shearwarp_bricked as swb
+from libre.ops import shearwarp_grad as swg
+from libre.ops import transfer_function as tf_ops
+from libre.ops.reference import RenderParams
+from libre.parallel.bricked_sharded import (
     build_sharded_slabs,
     render_store_grid_sharded,
     slab_ranges,
 )
-from libre_tpu.parallel.mesh import make_mesh
+from libre.parallel.mesh import make_mesh
 from tests.test_bricked import fine_nodes, make_scene, upload_nodes
 from tests.test_reference_marcher import make_volume
 
@@ -53,11 +52,7 @@ def dense_store(seed=3):
     vol = make_volume(N, seed=seed).astype(np.float32)
     real = np.transpose(vol, sw._PERM[AXIS])
     na, nc, nb = real.shape
-    store = np.full(
-        (na, _round_up(nc, 128), _round_up(nb, 128)), swb.SENTINEL,
-        np.float32,
-    )
-    store[:, :nc, :nb] = real
+    store = np.ascontiguousarray(real, np.float32)
     return jnp.asarray(store), na, nc, nb
 
 
@@ -74,9 +69,9 @@ def single_device(store, tf, na, nc, nb, early_exit=NO_EXIT):
         na_store=store.shape[0], na_real=na, nc_real=nc, nb_real=nb,
         k_planes=K, v_size=V_SIZE, u_size=U_SIZE,
         world_min=GMIN, world_max=GMAX, axis=AXIS,
-        early_exit=early_exit, interpret=True,
+        early_exit=early_exit,
     )
-    out, _t = swg._run_kernel(store, tf, jnp.asarray(view_vec()), static)
+    out, _t = swg._forward(store, tf, jnp.asarray(view_vec()), static)
     return np.asarray(out)
 
 
@@ -88,7 +83,7 @@ def sharded(mesh, store, tf, na, nc, nb, early_exit=NO_EXIT, **kw):
             inter_size=(V_SIZE, U_SIZE),
             wb0=float(GMIN[B_AXIS]), wb1=float(GMAX[B_AXIS]),
             wc0=float(GMIN[C_AXIS]), wc1=float(GMAX[C_AXIS]),
-            early_exit=early_exit, interpret=True, **kw,
+            early_exit=early_exit, **kw,
         )
     )
 
@@ -147,7 +142,7 @@ def test_sharded_early_exit_bounded(setup):
 
 
 def test_sharded_from_atlas_end_to_end(tmp_path):
-    """Full path: lod:// datasource → HBM atlas → per-device assembled
+    """Full path: lod:// datasource → device atlas → per-device assembled
     slabs (build_sharded_slabs) → sharded sweep, vs the single-device
     bricked renderer over the same atlas."""
     vol, ds = make_scene(tmp_path, n=32, block=16)
@@ -170,7 +165,6 @@ def test_sharded_from_atlas_end_to_end(tmp_path):
             atlas.data, plan, tf,
             eye=EYE, sign=SIGN, slope_bounds=BOUNDS,
             world_min=GMIN, world_max=GMAX, params=params, swp=swp,
-            interpret=True,
         )
     )
     fv = swg.view_vector(
@@ -189,7 +183,7 @@ def test_sharded_from_atlas_end_to_end(tmp_path):
             inter_size=(V_SIZE, U_SIZE),
             wb0=float(GMIN[B_AXIS]), wb1=float(GMAX[B_AXIS]),
             wc0=float(GMIN[C_AXIS]), wc1=float(GMAX[C_AXIS]),
-            early_exit=NO_EXIT, a_base=a_base, interpret=True,
+            early_exit=NO_EXIT, a_base=a_base,
         )
     )
     np.testing.assert_allclose(img, ref, atol=2e-5)
@@ -199,9 +193,9 @@ def test_engine_render_bricked_sharded_parity(tmp_path):
     """Engine-level multi-device frame (BASELINE config 4): the mesh
     render over per-device slabs equals the single-device bricked frame
     up to device-local early termination (< 1 - threshold)."""
-    from libre_tpu.core.frustum import Frustum, look_at, perspective
-    from libre_tpu.ops.reference import Camera
-    from libre_tpu.render.engine import RenderEngine
+    from libre.core.frustum import Frustum, look_at, perspective
+    from libre.ops.reference import Camera
+    from libre.render.engine import RenderEngine
 
     _vol, ds = make_scene(tmp_path)
     engine = RenderEngine(ds, max_gpu_cache_mb=64, filter_mode="trilinear")
@@ -248,7 +242,7 @@ def test_engine_sharded_progressive_refinement(tmp_path):
     sharded image (r3 missing 3: progressive refinement on the sharded
     path)."""
     from tests.test_bricked import _engine_scene
-    from libre_tpu.parallel.mesh import make_mesh
+    from libre.parallel.mesh import make_mesh
 
     vol, engine, cam, frustum = _engine_scene(tmp_path)
     mesh = make_mesh(n_brick=2, n_ray=4)

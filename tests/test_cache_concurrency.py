@@ -9,7 +9,7 @@ import time
 
 import pytest
 
-from libre_tpu.core.cache import CacheLoadError, LRUCache
+from libre.core.cache import CacheLoadError, LRUCache
 
 
 def test_same_id_constructs_once_under_contention():

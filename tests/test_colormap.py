@@ -5,8 +5,8 @@ apps/livreGUI/transferFunctionEditor/)."""
 import numpy as np
 import pytest
 
-from libre_tpu.ops import colormap as cm_ops
-from libre_tpu.ops.transfer_function import default_color_map
+from libre.ops import colormap as cm_ops
+from libre.ops.transfer_function import default_color_map
 
 
 def test_sample_piecewise_linear():
@@ -56,7 +56,7 @@ def test_from_table_fit():
 
 
 def test_load_1dt(tmp_path):
-    from libre_tpu.ops.transfer_function import save_1dt
+    from libre.ops.transfer_function import save_1dt
 
     p = str(tmp_path / "t.1dt")
     save_1dt(p, default_color_map(64))

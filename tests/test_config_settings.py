@@ -6,15 +6,15 @@ tests/core/signalledVariable.cpp."""
 import numpy as np
 import pytest
 
-from libre_tpu.core.config import (
+from libre.core.config import (
     ApplicationParameters,
     Configuration,
     ConfigurationError,
     RendererParameters,
 )
-from libre_tpu.core.frame_utils import INVALID_TIMESTEP, FrameUtils
-from libre_tpu.core.settings import CameraSettings, FrameData
-from libre_tpu.core.signalled import SignalledVariable
+from libre.core.frame_utils import INVALID_TIMESTEP, FrameUtils
+from libre.core.settings import CameraSettings, FrameData
+from libre.core.signalled import SignalledVariable
 
 
 def test_configuration_parse():

@@ -4,14 +4,14 @@ tests/lib/rawDatasource.cpp, tests/uvf/uvf.cpp and tests/core/volumeInformation.
 import numpy as np
 import pytest
 
-from libre_tpu.core.nodeid import NodeId
-from libre_tpu.core.volume_info import DataType, VolumeInformation, fill_regular_volume_info
-from libre_tpu.data.datasource import DataSource
-from libre_tpu.data.lod_store import build_lod_store
-import libre_tpu.data.memory  # noqa: F401
-import libre_tpu.data.raw  # noqa: F401
-import libre_tpu.data.lod_store  # noqa: F401
-from libre_tpu.data.memory import node_value
+from libre.core.nodeid import NodeId
+from libre.core.volume_info import DataType, VolumeInformation, fill_regular_volume_info
+from libre.data.datasource import DataSource
+from libre.data.lod_store import build_lod_store
+import libre.data.memory  # noqa: F401
+import libre.data.raw  # noqa: F401
+import libre.data.lod_store  # noqa: F401
+from libre.data.memory import node_value
 
 
 class TestFillRegularVolumeInfo:

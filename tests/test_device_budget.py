@@ -16,10 +16,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from libre_tpu.core.frustum import Frustum, look_at, perspective
-from libre_tpu.data.datasource import DataSource, load_plugins
-from libre_tpu.ops.reference import Camera, RenderParams
-from libre_tpu.render.engine import (
+from libre.core.frustum import Frustum, look_at, perspective
+from libre.data.datasource import DataSource, load_plugins
+from libre.ops.reference import Camera, RenderParams
+from libre.render.engine import (
     RenderEngine,
     _ByteLRU,
     _SharedByteBudget,

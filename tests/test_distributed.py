@@ -16,7 +16,7 @@ import sys
 import numpy as np
 import pytest
 
-from libre_tpu.parallel.distributed import (
+from libre.parallel.distributed import (
     broadcast_frame_state,
     initialize,
     is_controller,

@@ -7,12 +7,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from libre_tpu.core.frustum import Frustum, look_at, perspective
-from libre_tpu.core.nodeid import NodeId
-from libre_tpu.data.datasource import DataSource, load_plugins
-from libre_tpu.ops import raycast
-from libre_tpu.ops.reference import BrickSet, Camera, RenderParams
-from libre_tpu.render.engine import RenderEngine, compute_rendering_set
+from libre.core.frustum import Frustum, look_at, perspective
+from libre.core.nodeid import NodeId
+from libre.data.datasource import DataSource, load_plugins
+from libre.ops import raycast
+from libre.ops.reference import BrickSet, Camera, RenderParams
+from libre.render.engine import RenderEngine, compute_rendering_set
 
 load_plugins()
 
@@ -230,43 +230,6 @@ def test_bricked_histogram_and_channel_dedupe(engine, view):
         int(p.sum) if p is not None else 0 for p in parts
     )
     assert merged == full.sum
-
-
-def test_render_pallas_marcher_matches_xla(engine, view):
-    """engine.render(marcher="pallas") — the r4 exact kernel behind the
-    engine's general-camera path — equals the XLA marcher, including
-    across memory-bounded multipass boundaries."""
-    cam, frustum = view
-    xla_img, s1, _ = engine.render(
-        cam, frustum, params=PARAMS, screen_space_error=2.0
-    )
-    pal_img, s2, _ = engine.render(
-        cam, frustum, params=PARAMS, screen_space_error=2.0,
-        marcher="pallas",
-    )
-    assert s2.n_passes == s1.n_passes
-    np.testing.assert_allclose(
-        np.asarray(pal_img), np.asarray(xla_img), atol=2e-4
-    )
-
-
-def test_render_pallas_marcher_multipass(view):
-    """Pallas marcher under forced multipass (tiny atlas)."""
-    cam, frustum = view
-    small = RenderEngine(DataSource(URI), max_gpu_cache_mb=64)
-    # Force 2-brick passes regardless of actual slot capacity.
-    small.atlas.n_slots = 3
-    xla_img, s1, _ = small.render(
-        cam, frustum, params=PARAMS, screen_space_error=2.0
-    )
-    pal_img, s2, _ = small.render(
-        cam, frustum, params=PARAMS, screen_space_error=2.0,
-        marcher="pallas",
-    )
-    assert s2.n_passes == s1.n_passes >= 2
-    np.testing.assert_allclose(
-        np.asarray(pal_img), np.asarray(xla_img), atol=2e-4
-    )
 
 
 def test_render_samples_per_pixel(engine, view):

@@ -5,10 +5,10 @@ expected NodeId lists."""
 import numpy as np
 import pytest
 
-from libre_tpu.core.frustum import Frustum
-from libre_tpu.core.select_visibles import select_visibles
-from libre_tpu.data.datasource import DataSource
-import libre_tpu.data.memory  # noqa: F401  (register mem://)
+from libre.core.frustum import Frustum
+from libre.core.select_visibles import select_visibles
+from libre.data.datasource import DataSource
+import libre.data.memory  # noqa: F401  (register mem://)
 
 # Column-major arrays as in the reference (vmmlib fills column-major);
 # numpy wants row-major, so reshape(4,4).T gives the math-convention matrix.

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from libre_tpu.models import VolumeScene
-from libre_tpu.ops.reference import RenderParams
-from libre_tpu.parallel import make_mesh
+from libre.models import VolumeScene
+from libre.ops.reference import RenderParams
+from libre.parallel import make_mesh
 from tests.test_reference_marcher import CAMERA, make_volume
 
 PARAMS = RenderParams(

@@ -5,10 +5,10 @@ and parallel compression must round-trip."""
 import numpy as np
 import pytest
 
-from libre_tpu.core.nodeid import NodeId
-from libre_tpu.data import native_io
-from libre_tpu.data.datasource import DataSource, load_plugins
-from libre_tpu.data.lod_store import build_lod_store
+from libre.core.nodeid import NodeId
+from libre.data import native_io
+from libre.data.datasource import DataSource, load_plugins
+from libre.data.lod_store import build_lod_store
 
 load_plugins()
 

@@ -3,7 +3,7 @@ tests/lib/lodSelection.cpp identifiers)."""
 
 import numpy as np
 
-from libre_tpu.core.nodeid import NodeId, RootNode, pack_ids, unpack_ids
+from libre.core.nodeid import NodeId, RootNode, pack_ids, unpack_ids
 
 
 def test_pack_layout_golden():

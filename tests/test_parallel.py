@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libre_tpu.ops import raycast, rays as ray_ops, transfer_function as tf_ops
-from libre_tpu.ops.reference import RenderParams, max_steps_for_bricks
-from libre_tpu.parallel import (
+from libre.ops import raycast, rays as ray_ops, transfer_function as tf_ops
+from libre.ops.reference import RenderParams, max_steps_for_bricks
+from libre.parallel import (
     make_mesh,
     render_rays_sharded,
     shard_bricks_front_to_back,
@@ -158,9 +158,9 @@ def test_gradients_through_shard_map(scene):
 def test_shearwarp_sharded_matches_single_device():
     """Sharded shear-warp (slope rows x plane ranges) == single-device
     slope grid up to the per-range early-exit caveat."""
-    from libre_tpu.ops import shearwarp, transfer_function as tf_ops
-    from libre_tpu.ops.reference import RenderParams
-    from libre_tpu.parallel.shearwarp_sharded import render_slope_grid_sharded
+    from libre.ops import shearwarp, transfer_function as tf_ops
+    from libre.ops.reference import RenderParams
+    from libre.parallel.shearwarp_sharded import render_slope_grid_sharded
     from tests.test_shearwarp import GMIN, GMAX, make_camera
     from tests.test_reference_marcher import make_volume
 
@@ -195,12 +195,12 @@ def test_composite_along_axis_matches_gather_fold():
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from libre_tpu.parallel.compositing import (
+    from libre.parallel.compositing import (
         composite_along_axis,
         composite_along_axis_gather,
         fold_over,
     )
-    from libre_tpu.parallel.mesh import BRICK_AXIS, make_mesh
+    from libre.parallel.mesh import BRICK_AXIS, make_mesh
 
     mesh = make_mesh(n_brick=8, n_ray=1)
     rng = np.random.default_rng(3)
@@ -259,11 +259,11 @@ def test_composite_direct_send_matches_gather_fold():
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from libre_tpu.parallel.compositing import (
+    from libre.parallel.compositing import (
         composite_direct_send,
         fold_over,
     )
-    from libre_tpu.parallel.mesh import BRICK_AXIS, make_mesh
+    from libre.parallel.mesh import BRICK_AXIS, make_mesh
 
     mesh = make_mesh(n_brick=8, n_ray=1)
     rng = np.random.default_rng(5)

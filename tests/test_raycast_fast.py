@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libre_tpu.ops import raycast, transfer_function as tf_ops
-from libre_tpu.ops.reference import RenderParams, render_reference, single_brick_set
+from libre.ops import raycast, transfer_function as tf_ops
+from libre.ops.reference import RenderParams, render_reference, single_brick_set
 from tests.test_reference_marcher import (
     CAMERA,
     GLOBAL_MAX,

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libre_tpu.ops import rays as ray_ops
-from libre_tpu.ops import transfer_function as tf_ops
-from libre_tpu.ops.reference import (
+from libre.ops import rays as ray_ops
+from libre.ops import transfer_function as tf_ops
+from libre.ops.reference import (
     BrickSet,
     Camera,
     RenderParams,

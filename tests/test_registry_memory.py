@@ -4,12 +4,12 @@ dispatch, RenderPipeline.cpp:65-70; MemoryUnit.h semantics)."""
 import numpy as np
 import pytest
 
-from libre_tpu.data.memory_unit import (
+from libre.data.memory_unit import (
     AllocMemoryUnit,
     ConstMemoryUnit,
     NoMemoryUnit,
 )
-from libre_tpu.render.registry import (
+from libre.render.registry import (
     RendererPlugin,
     available_renderers,
     create_renderer,

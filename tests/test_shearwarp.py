@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libre_tpu.core.frustum import look_at, perspective
-from libre_tpu.ops import raycast, shearwarp, transfer_function as tf_ops
-from libre_tpu.ops.reference import Camera, RenderParams, single_brick_set
+from libre.core.frustum import look_at, perspective
+from libre.ops import raycast, shearwarp, transfer_function as tf_ops
+from libre.ops.reference import Camera, RenderParams, single_brick_set
 from tests.test_reference_marcher import make_volume
 
 W = H = 32
@@ -120,9 +120,9 @@ def test_opaque_early_exit(scene):
 def test_engine_shearwarp_path():
     """RenderEngine.render_shearwarp assembles the LOD level and renders
     close to the exact engine path."""
-    from libre_tpu.core.frustum import Frustum
-    from libre_tpu.data.datasource import DataSource, load_plugins
-    from libre_tpu.render.engine import RenderEngine
+    from libre.core.frustum import Frustum
+    from libre.data.datasource import DataSource, load_plugins
+    from libre.render.engine import RenderEngine
 
     load_plugins()
     engine = RenderEngine(
@@ -226,7 +226,7 @@ def test_post_classification_matches_oracle(scene):
 def test_post_equals_pre_for_affine_tf(scene):
     """With a TF affine in density, interpolate-then-classify equals
     classify-then-interpolate (the classic shear-warp equivalence)."""
-    from libre_tpu.ops.transfer_function import grayscale_ramp
+    from libre.ops.transfer_function import grayscale_ramp
 
     volume, _ = scene
     # keep densities inside the clamp-free TF interior

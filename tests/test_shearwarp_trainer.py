@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from libre_tpu.core.frustum import look_at, perspective
-from libre_tpu.ops import shearwarp as sw
-from libre_tpu.ops import transfer_function as tf_ops
-from libre_tpu.ops.reference import Camera, RenderParams
-from libre_tpu.parallel import make_mesh
-from libre_tpu.train import shearwarp_trainer as swt
+from libre.core.frustum import look_at, perspective
+from libre.ops import shearwarp as sw
+from libre.ops import transfer_function as tf_ops
+from libre.ops.reference import Camera, RenderParams
+from libre.parallel import make_mesh
+from libre.train import shearwarp_trainer as swt
 
 
 def _camera(eye, img=32, near=0.1):

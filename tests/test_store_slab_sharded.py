@@ -1,4 +1,4 @@
-"""Slab-sharded (model-parallel) store training — config 5 at pod scale.
+"""Slab-sharded (model-parallel) store training — config 5 across devices.
 
 The density store lives 1/d_k per device on the mesh brick axis; each
 device sweeps its global plane range against its slab (+2 ppermute halo
@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import optax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from libre_tpu.parallel.mesh import BRICK_AXIS, make_mesh
-from libre_tpu.train import store_trainer as st
+from libre.parallel.mesh import BRICK_AXIS, make_mesh
+from libre.train import store_trainer as st
 from tests.test_store_trainer import make_problem
 
 

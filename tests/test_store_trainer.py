@@ -14,13 +14,12 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from libre_tpu.ops import shearwarp as sw
-from libre_tpu.ops import shearwarp_grad as swg
-from libre_tpu.ops import transfer_function as tf_ops
-from libre_tpu.ops.shearwarp_bricked import SENTINEL
-from libre_tpu.ops.shearwarp_pallas import _round_up
-from libre_tpu.parallel.mesh import make_mesh
-from libre_tpu.train import store_trainer as st
+from libre.ops import shearwarp as sw
+from libre.ops import shearwarp_grad as swg
+from libre.ops import transfer_function as tf_ops
+from libre.ops.shearwarp_bricked import SENTINEL
+from libre.parallel.mesh import make_mesh
+from libre.train import store_trainer as st
 from tests.test_reference_marcher import make_volume
 
 GMIN = np.float32([-0.5] * 3)
@@ -51,16 +50,13 @@ def make_problem(n_views=2, diff_tf=True):
     vol = make_volume(N, seed=5).astype(np.float32)
     real = np.transpose(vol, sw._PERM[AXIS])
     na, nc, nb = real.shape
-    store = np.full(
-        (na, _round_up(nc, 128), _round_up(nb, 128)), SENTINEL, np.float32
-    )
-    store[:, :nc, :nb] = real
+    store = np.ascontiguousarray(real, np.float32)
     problem = st.StoreProblem(
         views=views,
         na_store=na, na_real=na, nc_real=nc, nb_real=nb,
         k_planes=K, inter_size=(V_SIZE, U_SIZE),
         world_min=GMIN, world_max=GMAX, axis=AXIS,
-        diff_tf=diff_tf, kc=16, interpret=True,
+        diff_tf=diff_tf, kc=16,
     )
     tf = jnp.asarray(np.asarray(tf_ops.default_color_map(256)))
     return problem, jnp.asarray(store), tf

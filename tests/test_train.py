@@ -9,16 +9,16 @@ import numpy as np
 import optax
 import pytest
 
-from libre_tpu.ops import rays as ray_ops, transfer_function as tf_ops
-from libre_tpu.ops.reference import RenderParams, max_steps_for_bricks
-from libre_tpu.parallel import make_mesh, shard_bricks_front_to_back
-from libre_tpu.train import (
+from libre.ops import rays as ray_ops, transfer_function as tf_ops
+from libre.ops.reference import RenderParams, max_steps_for_bricks
+from libre.parallel import make_mesh, shard_bricks_front_to_back
+from libre.train import (
     InverseRenderProblem,
     make_train_step,
     restore_checkpoint,
     save_checkpoint,
 )
-from libre_tpu.train.trainer import init_state
+from libre.train.trainer import init_state
 from tests.test_reference_marcher import (
     CAMERA,
     GLOBAL_MAX,

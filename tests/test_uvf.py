@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from libre_tpu.core.nodeid import NodeId
-from libre_tpu.data.datasource import DataSource, load_plugins
+from libre.core.nodeid import NodeId
+from libre.data.datasource import DataSource, load_plugins
 
 UVF_FILE = "/root/reference/tests/uvf/mouse_reduced.uvf"
 
@@ -124,8 +124,8 @@ def test_out_of_grid_get_data_raises(source):
 def test_selection_skips_invalid_children(source):
     """SelectVisibles culls invalid (out-of-grid) nodes instead of
     selecting their degenerate boxes (UVFDataSource.cpp:311-318)."""
-    from libre_tpu.core.frustum import Frustum, look_at, perspective
-    from libre_tpu.core.select_visibles import select_visibles
+    from libre.core.frustum import Frustum, look_at, perspective
+    from libre.core.select_visibles import select_visibles
 
     proj = perspective(50.0, 1.0, 0.1, 15.0)
     mv = look_at([0.3, 0.2, 1.6], [0, 0, 0], [0, 1, 0])
@@ -144,9 +144,9 @@ def test_engine_renders_uvf_end_to_end(source):
     paths produce a consistent image of the dataset."""
     import jax.numpy as jnp
 
-    from libre_tpu.core.frustum import Frustum, look_at, perspective
-    from libre_tpu.ops.reference import Camera, RenderParams
-    from libre_tpu.render.engine import RenderEngine
+    from libre.core.frustum import Frustum, look_at, perspective
+    from libre.ops.reference import Camera, RenderParams
+    from libre.render.engine import RenderEngine
 
     eng = RenderEngine(source, max_gpu_cache_mb=64, filter_mode="trilinear")
     assert eng.atlas_dtype == jnp.dtype(jnp.uint8)  # native dtype
@@ -184,7 +184,7 @@ def test_uvf_native_batch_matches_serial(source):
     Python reader brick-for-brick (incl. edge bricks via fallback)."""
     import itertools
 
-    from libre_tpu.data import native_io
+    from libre.data import native_io
 
     if not native_io.available():
         pytest.skip("native brickio unavailable")
